@@ -1,14 +1,14 @@
-"""algebraicmultigrid_tpu — a TPU-native algebraic multigrid framework.
+"""algebraicmultigrid_tpu — an algebraic multigrid framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA re-design of the capability surface of
 ``JuliaLinearAlgebra/AlgebraicMultigrid.jl`` (reference mounted read-only at
 ``/root/reference``; structural analysis in ``SURVEY.md``).  Not a port: the
 run-once hierarchy setup executes as vectorised host kernels (numpy/scipy,
 with native C++ acceleration for the sequential graph algorithms), while the
-solve hot path runs as jitted static-shape JAX on padded ELL sparse levels —
+solve hot path runs as jitted static-shape JAX on device operator levels —
 with multicolor relaxation replacing sequential Gauss-Seidel, device-resident
 dense coarse solves, and ``shard_map`` row-partitioned distribution across a
-TPU mesh.
+device mesh.  The accelerator it is built for is an NVIDIA GPU (H100).
 
 Public API mirrors the reference's names and defaults (survey §2, §5.6).
 """

@@ -6,15 +6,15 @@ configs (``/root/reference/src/smoother.jl:10-23,92-99,173-180``), cycle tags
 (θ=0.25 classical / 0.0 symmetric, ω=4/3 prolongation, GS-symmetric
 smoothers, max_levels=10, max_coarse=10).
 
-TPU-native addition: every order-dependent smoother takes an ``ordering``:
+Device-engine addition: every order-dependent smoother takes an ``ordering``:
 
 * ``"natural"``  — the reference's sequential sweep semantics.  Runs as
   C-speed triangular solves on the host engine and as an exact ``lax.scan``
-  recurrence on the device engine (conformance path; not TPU-fast).
+  recurrence on the device engine (conformance path; sequential, slow).
 * ``"multicolor"`` — graph-colored relaxation: rows of one color update
   simultaneously (a true Gauss-Seidel for the color-permuted ordering).
-  This is the TPU-native hot path: each color step is a dense-regular
-  gather/reduce that XLA maps onto the VPU with no sequential recurrence.
+  This is the device hot path: each color step is a dense-regular
+  data-parallel update that XLA fuses, with no sequential recurrence.
 
 Convergence contracts (not sweep-for-sweep equality) are the behavioural
 requirement, per the reference's own tests (test/test_smoothers.jl:15-45).

@@ -7,7 +7,7 @@ The near-null-space kwarg ``B`` is rejected (classical.jl:17-18).
 
 The Galerkin triple product runs as scipy CSR SpGEMM (C-speed two-pass, the
 same count/fill structure the reference gets from Julia's stdlib SpGEMM).
-A distributed/Pallas SpGEMM replaces it at scale in the parallel tier.
+A distributed SpGEMM (parallel/sharded_rap.py) is the parallel-tier form.
 """
 
 from __future__ import annotations

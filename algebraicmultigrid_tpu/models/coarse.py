@@ -4,7 +4,7 @@ Parity with ``/root/reference/src/coarse_solver.jl``: a coarse solver is
 constructed from the final-level matrix and called as ``cs(x, b)``
 (coarse_solver.jl:2).  The coarse grid is tiny (≤ max_coarse, default 10) and
 dense-factorised once at setup; on device the apply is a replicated dense
-triangular-solve / matmul — the TPU-native equivalent of the reference's
+triangular-solve / matmul — the device equivalent of the reference's
 replicated direct solve (survey §7).
 
 * :class:`Pinv` — Moore-Penrose pseudo-inverse; handles **singular** coarse

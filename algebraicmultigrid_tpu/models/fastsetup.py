@@ -303,7 +303,7 @@ def latticify_tail(ml: MultiLevel, max_rows: int = 300_000) -> MultiLevel:
     Below the proxy-extrapolation cut the actual scipy matrices exist and
     are small, so ``extract_spec`` runs directly on them (O(nnz), exact
     round-trip verified).  Converted levels lower to gather-free Lat2D
-    device operators — and fused Pallas legs — just like the big ones."""
+    device operators just like the big ones."""
     from .structured import detect_lattice_dims
 
     for lvl, level in enumerate(ml.levels):

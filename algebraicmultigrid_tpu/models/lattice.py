@@ -28,7 +28,7 @@ large; the remaining (small) coarse levels are assembled to scipy and fed to
 the ordinary generic setup, so semantics below the cut are untouched.  Any
 extraction failure falls back to the generic path.
 
-This is the TPU-native answer to "setup is a sequential host bottleneck": the
+This is the answer to "setup is a sequential host bottleneck": the
 per-level cost becomes independent of n (hypre's structured PFMG makes the
 same trade, but here the coefficients still come from the *algebraic*
 pipeline, so the hierarchy matches the generic one exactly — interior

@@ -16,7 +16,7 @@ Two interchangeable engines run the same cycle structure:
   — the conformance reference used for differential testing and small
   problems;
 * the **device engine** (``models/device.py``) — jitted JAX on static-shape
-  padded ELL levels; the TPU hot path.  ``MultiLevel.solve(engine="jax")``.
+  device operator levels; the hot path.  ``MultiLevel.solve(engine="jax")``.
 """
 
 from __future__ import annotations

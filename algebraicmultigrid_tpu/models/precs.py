@@ -3,7 +3,7 @@
 Parity with ``/root/reference/src/precs.jl``: the reference exposes
 ``RugeStubenPreconBuilder``/``SmoothedAggregationPreconBuilder`` — callables
 ``(A, p) -> (aspreconditioner(setup(A, Val{blocksize}; kwargs...)), I)``
-consumed by LinearSolve.jl's ``precs`` API (precs.jl:7-38).  The TPU build
+consumed by LinearSolve.jl's ``precs`` API (precs.jl:7-38).  This package
 keeps the same shape so the builders plug into any Krylov loop that takes a
 ``(left, right)`` preconditioner pair — including the in-repo :func:`cg`
 (pass ``builder(A)[0]``) and ``scipy.sparse.linalg``'s ``M=`` argument via

@@ -18,7 +18,7 @@ Semantics parity:
   *throws* at setup (smoother.jl:226-246 DiagonalIndices); we do too.
 * weighted Jacobi: x ← x + ωD⁻¹(b − Ax), zero-diag rows frozen
   (smoother.jl:101-171; both symmetry paths are algebraically identical).
-* multicolor GS/SOR: the TPU-native ordering (see ops/coloring.py), also
+* multicolor GS/SOR: the device engine's ordering (see ops/coloring.py), also
   available on the host engine so both engines can be differentially tested.
 
 All smoothers accept x, b of shape (n,) or (n, k) (multi-RHS, the

@@ -14,7 +14,7 @@ hardest-to-parallelise component).  The strategy here:
 * this Python/numpy implementation is the semantic reference, used for tests
   and small/medium problems;
 * an identical-semantics C++ kernel (``native/amg_setup.cpp``) takes over for
-  large n — splitting runs once per level at setup, off the TPU hot path;
+  large n — splitting runs once per level at setup, off the device hot path;
 * a PMIS-style parallel splitting (different, weaker hierarchy guarantees) is
   planned as an opt-in for extreme scale.
 

@@ -1,12 +1,12 @@
-"""Structure-detecting C/F splitting — the TPU-fast coarsening policy.
+"""Structure-detecting C/F splitting — the banded coarsening policy.
 
 The reference's greedy bucket-queue RS splitting (splitting.jl:25-159) is
 order-dependent: on lattice problems its tie-breaking seeds *dislocation
 lines* in the coarse point set (visible as sheared rows in the C-point
 plot).  Each dislocation shifts every later coarse *rank* by one, so the
 fine→coarse index maps of P/R — and through them the coarse operators —
-lose their banded structure.  On TPU that forces gather-based SpMV, which
-measures ~60× slower than the shift-multiply (SDIA) form.
+lose their banded structure.  That forces a gather-based SpMV (ELL) in
+place of the shift-multiply (SDIA/lattice) forms.
 
 :class:`StructuredRS` removes the dislocations at the source, the same move
 hypre makes with its structured PFMG/SMG solvers: when the strength graph

@@ -1,11 +1,8 @@
 """Gather-free device operator formats: strided-diagonal (SDIA) and dense.
 
-Why this exists — measured on the target TPU (v5e):
-
-* XLA lowers 1-D gathers to scalar DMA loops: the padded-ELL SpMV runs at
-  ~0.13 Gnnz/s regardless of size (memo: ops/pallas notes).
-* A diagonal-format SpMV (shift + multiply + add, zero gathers) runs at
-  8+ Gnnz/s — a ~60× difference.
+Why this exists: a diagonal-format SpMV (shift + multiply + add) reads x
+as contiguous slices and needs no column-index array, so it moves fewer
+bytes than the padded-ELL gather form (ops/spmv.py).
 
 AMG hierarchies on grid-like problems are banded exactly where the work is:
 2-D Poisson RS levels 0-1 have 5/11 diagonals and hold ~97% of the nnz;
@@ -15,10 +12,10 @@ banded: col ≈ (row·p)/q + offset with a handful of offsets.
 :class:`SDIA` represents  y[i] = Σ_k data[k, i] · x[(i·p)//q + off_k]
 with static (p, q, offsets).  Evaluation decomposes the row space by
 residue r = i mod q: (i·p)//q = m·p + (r·p)//q, so each (offset, residue)
-pair is ONE static strided slice of x — pure VPU work, fully fusible, no
+pair is ONE static strided slice of x — elementwise work, fully fusible, no
 gather anywhere.  Square banded matrices are the p=q=1 special case.
 
-Small levels fall back to :class:`DenseOp` (one MXU matmul); anything
+Small levels fall back to :class:`DenseOp` (one matmul); anything
 irregular falls back to gather-ELL (ops/sparse.ELL).
 """
 
@@ -60,7 +57,7 @@ class SDIA:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DenseOp:
-    """Dense operator for small levels — one MXU matmul per apply."""
+    """Dense operator for small levels — one matmul per apply."""
 
     mat: jax.Array  # [rows_padded, cols] (zero rows beyond shape[0])
     shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
@@ -216,10 +213,6 @@ def mat_vec(A, x: jax.Array) -> jax.Array:
 
     if isinstance(A, Lat2D):
         return lat2d_spmv(A, x)
-    from .bsg import BSG, bsg_spmv
-
-    if isinstance(A, BSG):
-        return bsg_spmv(A, x)
     from .lattice_nd_op import LatND, latnd_spmv
 
     if isinstance(A, LatND):
@@ -232,7 +225,7 @@ def op_nnz(A) -> int:
 
 
 # --------------------------------------------------------------------------
-# Block-Toeplitz operators (periodic transfer maps, MXU evaluation)
+# Block-Toeplitz operators (periodic transfer maps, matmul evaluation)
 # --------------------------------------------------------------------------
 
 
@@ -244,7 +237,7 @@ class BTOp:
     Structured-coarsening transfer operators P/R repeat with an exact period:
     rows mT+r couple to columns (m+δ)C+c with coefficients B_δ[r, c]
     independent of m (translation invariance of the periodic C-set).  The
-    apply is then a handful of small dense matmuls on the MXU:
+    apply is then a handful of small dense matmuls:
 
         Y[m] = Σ_δ B_δ @ X2[m+δ],   X2 = x reshaped to [·, C]
 
@@ -414,8 +407,8 @@ def _bt_spmv(A: "BTOp", x: jax.Array) -> jax.Array:
     # boundary remainder: tiny gather + scatter-add
     xg = jnp.take(x_log, A.rest_cols, axis=0)
     if x.ndim == 1:
-        contrib = jnp.einsum("mw,mw->m", A.rest_data, xg)
+        contrib = jnp.sum(A.rest_data * xg, axis=1)
     else:
-        contrib = jnp.einsum("mw,mwk->mk", A.rest_data, xg)
+        contrib = jnp.sum(A.rest_data[:, :, None] * xg, axis=1)
     y = y.at[A.rest_rows].add(contrib, mode="drop")
     return y

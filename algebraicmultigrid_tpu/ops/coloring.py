@@ -1,11 +1,11 @@
-"""Graph coloring for multicolor (TPU-parallel) relaxation.
+"""Graph coloring for multicolor (data-parallel) relaxation.
 
 The reference's Gauss-Seidel/SOR fast paths are sequential recurrences
 (``/root/reference/src/smoother.jl:73-90,205-221``) — unusable on a vector
 machine.  Multicolor relaxation partitions rows into independent sets; rows
 within a color have no mutual coupling, so updating a whole color at once IS
 Gauss-Seidel for the color-permuted ordering.  Each color step becomes a
-dense-regular batched row update on the TPU VPU.
+dense-regular batched row update on the device.
 
 Implemented as a vectorised Jones–Plassmann greedy: numpy-only, O(E) work
 per round, deterministic (seeded priorities), no Python per-node loop — so
@@ -33,8 +33,9 @@ def color_steps(n_colors, iters, fwd, bwd, omega=1.0):
     row solve given fixed neighbours, i.e. a projection: repeating it is the
     identity (the color's residual is already zero), so the duplicate step
     is dropped.  At ω ≠ 1 the blended update is not idempotent and the full
-    sequence is kept.  Every multicolor engine (masked XLA, fused Pallas)
-    derives its steps from here so cross-path bitwise tests stay exact."""
+    sequence is kept.  Every multicolor engine (single-device masked sweep,
+    slab-sharded sweep) derives its steps from here so cross-path tests
+    compare the same sweep."""
     steps = []
     for _ in range(iters):
         if fwd:

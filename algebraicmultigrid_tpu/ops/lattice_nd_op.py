@@ -5,7 +5,7 @@ The N-axis generalisation of :class:`~.lattice_op.Lat2D`:
     y[i_0,…] = Σ_k data_k[i_0,…] · X[(i_0·p_0)//q_0 + d_0^k, …]
 
 Each offset k is one static (possibly strided/repeated) N-D slice of the
-padded input grid — multiply-add on the VPU, fully fusible by XLA, no
+padded input grid — elementwise multiply-add, fully fusible by XLA, no
 gathers anywhere.  Covers square level operators (all bases (1,1)) and the
 per-axis k-coarsened transfer operators P/R of box aggregation.
 """

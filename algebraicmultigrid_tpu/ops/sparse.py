@@ -1,4 +1,4 @@
-"""Sparse containers for the TPU-native AMG framework.
+"""Sparse containers for the AMG framework.
 
 Two tiers:
 
@@ -11,7 +11,7 @@ Two tiers:
 * Device tier — :class:`ELL` is an immutable, static-shape, padded
   sparse-row format registered as a JAX pytree.  Every row is padded to the
   same width so all solve-phase kernels (SpMV, smoothers) are dense-regular
-  gathers/reductions that XLA tiles onto the VPU; there is no dynamic shape
+  gathers/reductions that XLA fuses into one loop; there is no dynamic shape
   anywhere under ``jit``.  Padding entries point at column 0 with value 0, so
   gathers stay in bounds and contribute nothing.
 
@@ -37,6 +37,8 @@ __all__ = [
     "as_csc",
     "ell_from_csr",
     "ell_to_scipy",
+    "bandwidth",
+    "rcm_permutation",
     "round_up",
 ]
 
@@ -80,7 +82,7 @@ class ELL:
 
     ``data[i, k]`` / ``cols[i, k]`` hold the k-th stored entry of row ``i``.
     Rows are padded with ``(col=0, val=0)`` up to ``width``; the row count is
-    padded up to a sublane multiple so the arrays tile cleanly on TPU.
+    padded up to a multiple of ``row_pad`` so sharded layouts divide evenly.
 
     Attributes
     ----------
@@ -116,8 +118,8 @@ def ell_from_csr(
 ) -> ELL:
     """Convert a host sparse matrix to the padded device :class:`ELL` format.
 
-    ``row_pad`` pads the row count to a multiple (8 = f32 sublane count) so
-    downstream kernels see tile-aligned shapes.
+    ``row_pad`` pads the row count to a multiple (the parallel tier passes
+    ``8·n_shards`` so row blocks divide evenly).
     """
     M = as_csr(A)
     n_rows, n_cols = M.shape
@@ -154,3 +156,19 @@ def ell_to_scipy(E: ELL) -> sp.csr_matrix:
     ).tocsr()
     M.eliminate_zeros()
     return M
+
+
+def bandwidth(A) -> int:
+    """Largest |col − row| over the stored entries."""
+    M = sp.coo_matrix(A)
+    return int(np.abs(M.col.astype(np.int64) - M.row).max()) if M.nnz else 0
+
+
+def rcm_permutation(A) -> np.ndarray:
+    """Reverse-Cuthill-McKee ordering of the symmetrised pattern: neighbours
+    get nearby indices, so an ELL SpMV's gathers of x hit nearby addresses."""
+    M = as_csr(A)
+    G = (M + M.T).tocsr() if M.shape[0] == M.shape[1] else M
+    return np.asarray(
+        sp.csgraph.reverse_cuthill_mckee(G, symmetric_mode=True), dtype=np.int64
+    )

@@ -2,9 +2,11 @@
 
 The solve-phase hot path of the reference is three CSC SpMVs per level per
 cycle (residual, restrict, prolong — ``/root/reference/src/multilevel.jl:218-234``)
-executed as scalar Julia loops.  Here each SpMV is a dense-regular gather +
-multiply + row reduction over static shapes, which XLA fuses and tiles onto
-the TPU VPU; there is no scalar loop and no dynamic shape.
+executed as scalar Julia loops.  Here each SpMV is a gather + multiply + row
+reduction over static shapes, which XLA fuses into one loop (the gathered
+``[rows, width]`` block is never written out); there is no scalar loop and
+no dynamic shape.  It is the format of every level no structured format
+(lattice, SDIA, block-Toeplitz, dense) fits: unstructured meshes and graphs.
 
 All ops accept either a vector ``x[n]`` or a multi-RHS block ``x[n, k]``
 (the analogue of the reference's ``bs``-blocked workspace,
@@ -46,12 +48,12 @@ def ell_spmv(A: ELL, x: jax.Array) -> jax.Array:
     # the cycle); stored column indices are always < A.shape[1] so the gather
     # is in bounds either way. Padding slots read x[0] but are multiplied by a
     # stored value of exactly 0.
+    # Multiply-and-sum rather than a dot: it fuses with the gather, and an
+    # f32 dot could be lowered to reduced-precision (TF32) tensor-core math.
     gathered = jnp.take(x, A.cols, axis=0)  # [rows_padded, width, ...]
     if x.ndim == 1:
-        y = jnp.einsum("rw,rw->r", A.data, gathered)
-    else:
-        y = jnp.einsum("rw,rwk->rk", A.data.astype(gathered.dtype), gathered)
-    return y
+        return jnp.sum(A.data * gathered, axis=1)
+    return jnp.sum(A.data.astype(gathered.dtype)[:, :, None] * gathered, axis=1)
 
 
 def ell_diag(A: ELL) -> jax.Array:

@@ -9,5 +9,6 @@ from .lattice_cycle import (
     build_slab_hierarchy,
     cycle_lattice_sharded,
     matvec_lattice_sharded,
+    place_slab_hierarchy,
     solve_lattice_sharded,
 )

@@ -2,16 +2,14 @@
 mesh.
 
 The reference has **no** distributed execution of any kind (survey §2.13) —
-this layer is net-new TPU design.  Round-1 architecture (the idiomatic pjit
+this layer is net-new design.  Architecture (the idiomatic pjit
 recipe: pick a mesh, annotate shardings, let XLA insert collectives):
 
 * every level's ELL operator is row-block sharded over a 1-D ``'shards'``
   mesh axis (``P('shards', None)``); level vectors are sharded the same way;
-* SpMV gathers of the source vector lower to XLA all-gathers over ICI —
-  correct at any sparsity.  (Halo-minimised ``shard_map`` + ``ppermute``
-  exchange, overlapping Pallas remote DMA with compute, is the planned
-  round-2 replacement for the fine levels, where the halo is a tiny fraction
-  of the row block.)
+* SpMV gathers of the source vector lower to XLA all-gathers between
+  devices — correct at any sparsity.  (The halo-minimised ``shard_map`` +
+  ``ppermute`` form lives in the slab tier, parallel/lattice_cycle.py.)
 * coarse-level operands and the dense coarse solve are **replicated** — the
   coarse-grid agglomeration policy (survey §5.7): levels shrink geometrically,
   so only the top one or two levels are worth sharding;
@@ -86,7 +84,7 @@ def _shard_ell(E, mesh: Mesh, *, replicate: bool = False):
 
     if isinstance(E, Lat2D):
         # data is [n_off, WxR, WyR] → shard the row-grid slab axis (x); the
-        # spmv's shifted-slab reads lower to XLA halo collectives over ICI
+        # spmv's shifted-slab reads lower to XLA halo collectives
         if replicate or E.row_dims[0] % mesh.devices.size:
             s = rep
         else:
@@ -103,13 +101,6 @@ def _shard_ell(E, mesh: Mesh, *, replicate: bool = False):
                 mesh, P(None, "shards", *([None] * (len(E.row_dims) - 1)))
             )
         return dataclasses.replace(E, data=jax.device_put(E.data, s))
-    from ..ops.bsg import BSG
-
-    if isinstance(E, BSG):
-        # the BSG pallas kernel is not SPMD-partitionable; keep it
-        # replicated (unstructured fine levels wanting scale should use the
-        # O(surface) slab tier or a future shard_map'ed BSG)
-        return jax.tree_util.tree_map(lambda a: jax.device_put(a, rep), E)
     return E
 
 
@@ -157,13 +148,6 @@ def shard_hierarchy(
     for level in h.levels:
         big = level.A.shape[0] >= replicate_below and level.A.rows_padded % n_shards == 0
         pre, post = level.pre, level.post
-        # single-chip Pallas caches don't shard — use their masked fallbacks
-        from ..ops.pallas.gs_kernel import PallasGSCache
-
-        if isinstance(pre, PallasGSCache):
-            pre = pre.fallback
-        if isinstance(post, PallasGSCache):
-            post = post.fallback
         levels.append(
             DeviceLevel(
                 A=_shard_ell(level.A, mesh, replicate=not big),
@@ -171,7 +155,6 @@ def shard_hierarchy(
                 R=_shard_ell(level.R, mesh, replicate=True),
                 pre=_shard_smoother(pre, mesh, big),
                 post=_shard_smoother(post, mesh, big),
-                fused=None,  # fused legs are single-chip kernels
             )
         )
     rep = NamedSharding(mesh, P())
@@ -182,7 +165,7 @@ def shard_hierarchy(
         qr_r=jax.device_put(h.coarse.qr_r, rep),
     )
     final_A = _shard_ell(h.final_A, mesh, replicate=True)
-    # the fine-level RCM basis (unstructured/BSG hierarchies) rides along
+    # the fine-level RCM basis (unstructured ELL hierarchies) rides along
     # replicated — dropping it would silently unpermute entry/exit
     perm0 = None if h.perm0 is None else jax.device_put(h.perm0, rep)
     iperm0 = None if h.iperm0 is None else jax.device_put(h.iperm0, rep)

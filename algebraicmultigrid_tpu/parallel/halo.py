@@ -4,18 +4,17 @@ The default multi-chip path lets XLA insert collectives from sharding
 annotations (dist.py).  For the fine-level stencil apply that generality is
 wasteful: a row-slab shard only needs its neighbours' edge rows — a fixed,
 tiny halo — not gathers of arbitrary columns.  This module is the explicit
-TPU-native form (survey §2.13, §5.7): a ``shard_map`` kernel that
+form (survey §2.13, §5.7): a ``shard_map`` kernel that
 
 1. exchanges ``reach`` boundary rows with the two slab neighbours via
-   ``jax.lax.ppermute`` (nearest-neighbour ICI traffic, no all-gather),
+   ``jax.lax.ppermute`` (nearest-neighbour traffic, no all-gather),
 2. applies the Lat2D stencil locally on the halo-padded slab.
 
 The collective moves ``2·reach·Wy`` elements per shard per apply —
 O(surface) — versus the O(volume) all-gather XLA falls back to when it can't
 prove the gather pattern.  Exposed as a standalone op (validated in
-``tests/test_multichip.py`` on the virtual mesh) and used by the sharded
-lattice cycle; also the template for the planned Pallas
-``make_async_remote_copy`` compute-overlapped variant.
+``tests/test_multichip.py`` on the virtual mesh); the sharded lattice
+cycle (parallel/lattice_cycle.py) uses the same exchange pattern.
 """
 
 from __future__ import annotations
@@ -46,17 +45,7 @@ def lat2d_spmv_halo(A: Lat2D, x, mesh: Mesh, axis: str = "shards"):
     ``A`` must be square (base (1,1)) with its data slab-sharded on the row
     grid; ``x`` a flat sharded vector of length Wx·Wy (divisible by the mesh
     size along the x grid axis).
-
-    ``AMG_ASYNC_HALO=1`` selects the Pallas ``make_async_remote_copy``
-    compute-overlapped variant (parallel/async_halo.py) instead of the
-    ppermute collective.
     """
-    import os
-
-    if os.environ.get("AMG_ASYNC_HALO") == "1":
-        from .async_halo import lat2d_spmv_halo_async
-
-        return lat2d_spmv_halo_async(A, x, mesh, axis)
     Wx, Wy = A.row_dims
     assert A.base_x == (1, 1) and A.base_y == (1, 1), "square stencils only"
     n_sh = mesh.shape[axis]
@@ -92,12 +81,7 @@ def lat2d_spmv_halo(A: Lat2D, x, mesh: Mesh, axis: str = "shards"):
             y = y + data_slab[k] * src
         return y.reshape(loc * Wy)
 
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    f = shard_map(
+    f = jax.shard_map(
         kernel,
         mesh=mesh,
         in_specs=(P(None, axis, None), P(axis)),

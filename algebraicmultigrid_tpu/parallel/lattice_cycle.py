@@ -1,8 +1,8 @@
 """Sharded lattice V-cycle: slab-partitioned multigrid with explicit halo
-exchange over a TPU mesh.
+exchange over a device mesh.
 
 The reference has no distributed execution (survey §2.13); this module is
-the TPU-native design the survey's §5.7/§5.8 call for, applied to the
+the design the survey's §5.7/§5.8 call for, applied to the
 flagship structured-SA lattice hierarchies:
 
 * every fine level's coefficient planes and vectors are **x-slab sharded**
@@ -12,8 +12,8 @@ flagship structured-SA lattice hierarchies:
 * all cross-slab data motion is **nearest-neighbour**: ``jax.lax.ppermute``
   moves only the edge rows a phase needs (O(surface) per apply, never an
   O(volume) all-gather).  A smoother application exchanges ONCE with a halo
-  of ``n_steps·reach`` rows and over-computes the extended slab — the same
-  erosion scheme as the single-chip Pallas legs (ops/pallas/vcycle_kernels.py);
+  of ``n_steps·reach`` rows and over-computes the extended slab (halo
+  erosion: each step's wrong rows stay inside the shrinking halo ring);
 * transfer operators use the factored-prolongator form ``P = (I − diag(s)A)T``
   (survey §2.7, aggregation.jl:10-17): restriction/prolongation are stride-k
   subsamples/upsamples that stay slab-aligned, because padded x-dims are
@@ -35,6 +35,7 @@ the virtual CPU mesh in ``tests/test_sharded_lattice.py``.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,15 +48,11 @@ from ..config import GaussSeidel, SOR, SymmetricSweep
 from ..models.multilevel import MultiLevel
 from ..ops.coloring import color_steps
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
-
 __all__ = [
     "build_slab_hierarchy",
     "cycle_lattice_sharded",
     "matvec_lattice_sharded",
+    "place_slab_hierarchy",
     "solve_lattice_sharded",
 ]
 
@@ -124,7 +121,8 @@ def _scale_plane(level, spec) -> Optional[np.ndarray]:
 def build_slab_hierarchy(
     ml: MultiLevel, n_sh: int, dtype="float32", min_loc: int = 8
 ) -> SlabHierarchy:
-    """Lower a structured-SA lattice hierarchy to slab-sharded plane form.
+    """Lower a structured-SA lattice hierarchy to slab-sharded plane form,
+    as host arrays (:func:`place_slab_hierarchy` commits them to a mesh).
 
     Requires every level to be a LatticeMatrix carrying the
     factored-prolongator stash (single-offset box-k tentative prolongator T
@@ -266,10 +264,10 @@ def build_slab_hierarchy(
         diag = spec.diagonal().reshape(Wx, Wy)
         dv = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 0.0)
         levels.append(SlabLevel(
-            A=jnp.asarray(A_sl, dtype=dt),
-            dinv=jnp.asarray(halo_slabs(fit(dv)), dtype=dt),
-            T=jnp.asarray(halo_slabs(fit(specT.expand(m["idxT"], dtype=np.float64))), dtype=dt),
-            S=jnp.asarray(halo_slabs(fit(m["S_pl"])), dtype=dt),
+            A=A_sl.astype(dt),
+            dinv=halo_slabs(fit(dv)).astype(dt),
+            T=halo_slabs(fit(specT.expand(m["idxT"], dtype=np.float64))).astype(dt),
+            S=halo_slabs(fit(m["S_pl"])).astype(dt),
             offsets=spec.offsets,
             color_tab=tuple(tuple(int(c) for c in row) for row in np.asarray(m["tab"])),
             pre_sm=m["pre_sm"],
@@ -288,7 +286,7 @@ def build_slab_hierarchy(
     else:
         Af = ml.levels[truncated_at].A.tocsr()
     Af = Af.toarray() if sp.issparse(Af) else np.asarray(Af)
-    pinv = jnp.asarray(np.linalg.pinv(Af), dtype=dt)
+    pinv = np.linalg.pinv(Af).astype(dt)
     kL = meta[-1]["k"]
     WxL, WyL = meta[-1]["pdims"]
     # true coarsest dims from the last kept T spec's column grid
@@ -337,8 +335,8 @@ def _plane(lv: SlabLevel, arr, H):
 
 def _stencil(A_h, Xe, offsets):
     """Σ_k A_k ⊙ shift_k(X) on an extended slab.  x-shifts roll within the
-    slab (wrap garbage lands in the eroding halo ring, exactly as in the
-    Pallas kernels); y-shifts read a zero-padded margin."""
+    slab (wrap garbage lands in the eroding halo ring); y-shifts read a
+    zero-padded margin."""
     my = max((abs(dy) for _, dy in offsets), default=0)
     rows, cols = Xe.shape
     Xp = jnp.pad(Xe, ((0, 0), (my, my)))
@@ -464,7 +462,7 @@ def _coarse_solve(h: SlabHierarchy, bc_full):
     (coarse_solver.jl:9-16 — singular-safe Moore-Penrose apply)."""
     cW, cH = h.ctrue
     flat = bc_full[:cW, :cH].reshape(cW * cH)
-    xg = (h.pinv @ flat).reshape(cW, cH)
+    xg = jnp.matmul(h.pinv, flat, precision=jax.lax.Precision.HIGHEST).reshape(cW, cH)
     return jnp.pad(xg, ((0, h.cpad[0] - cW), (0, h.cpad[1] - cH)))
 
 
@@ -556,15 +554,9 @@ def _hier_specs(h: SlabHierarchy):
 
 
 def _shard_map(kern, mesh, in_specs, out_specs):
-    """shard_map across jax versions (check_vma / check_rep renames)."""
-    for kw in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return shard_map(
-                kern, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **kw
-            )
-        except TypeError:
-            continue
-    raise RuntimeError("shard_map unavailable")
+    return jax.shard_map(
+        kern, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
+    )
 
 
 def _cycle_tag(cycle) -> str:
@@ -578,20 +570,25 @@ def cycle_lattice_sharded(h: SlabHierarchy, x, b, mesh: Mesh, cycle="v"):
     """One V/W/F cycle on slab-sharded grids ([Wxp, Wyp], P('shards', None)).
     Linear in (x, b); call with x = 0 for the preconditioner contract.
     Recursion policy follows multilevel.jl:200-212 exactly."""
+    return _cycle_jit(h, x, b, mesh=mesh, cyc=_cycle_tag(cycle))
+
+
+@partial(jax.jit, static_argnames=("mesh", "cyc"))
+def _cycle_jit(h: SlabHierarchy, x, b, mesh: Mesh, cyc: str):
     n_sh = h.n_sh
-    cyc = _cycle_tag(cycle)
 
     def kern(hh, xs, bs):
         return _level_cycle(hh, 0, xs, bs, n_sh, cyc)
 
     if not h.levels[0].sharded or n_sh == 1:
-        return jax.jit(kern)(h, x, b)
+        return kern(h, x, b)
     f = _shard_map(
         kern, mesh, (_hier_specs(h), P(AXIS, None), P(AXIS, None)), P(AXIS, None)
     )
     return f(h, x, b)
 
 
+@partial(jax.jit, static_argnames=("mesh",))
 def matvec_lattice_sharded(h: SlabHierarchy, x, mesh: Mesh):
     """y = A₀·x on the slab-sharded fine grid (halo-exchange stencil — the
     O(surface) ppermute pattern of parallel/halo.py, on the padded grid)."""
@@ -606,9 +603,21 @@ def matvec_lattice_sharded(h: SlabHierarchy, x, mesh: Mesh):
         return y[reach : y.shape[0] - reach]
 
     if not h.levels[0].sharded or n_sh == 1:
-        return jax.jit(kern)(h, x)
+        return kern(h, x)
     f = _shard_map(kern, mesh, (_hier_specs(h), P(AXIS, None)), P(AXIS, None))
     return f(h, x)
+
+
+def place_slab_hierarchy(h: SlabHierarchy, mesh: Mesh) -> SlabHierarchy:
+    """Commit every slab array onto ``mesh`` with the cycle's shardings:
+    sharded levels one slab per device, replicated levels on every device.
+    Multi-host: every process holds identical host-side arrays, and this
+    makes them global arrays (SURVEY §4 end note)."""
+    return jax.tree_util.tree_map(
+        lambda a, s: jax.device_put(a, NamedSharding(mesh, s)),
+        h,
+        _hier_specs(h),
+    )
 
 
 def solve_lattice_sharded(
@@ -635,19 +644,9 @@ def solve_lattice_sharded(
 
     key = ("slab", jnp.dtype(dtype).name, n_sh)
     if key not in ml._device_cache:
-        h = build_slab_hierarchy(ml, n_sh, dtype=dtype)
-        if jax.process_count() > 1:
-            # multi-host: every process holds identical host-side arrays;
-            # commit them onto the GLOBAL mesh with the cycle's shardings so
-            # the jitted shard_map sees global arrays (SURVEY §4 end note)
-            h = jax.tree_util.tree_map(
-                lambda a, s: jax.device_put(
-                    np.asarray(a), NamedSharding(mesh, s)
-                ),
-                h,
-                _hier_specs(h),
-            )
-        ml._device_cache[key] = h
+        ml._device_cache[key] = place_slab_hierarchy(
+            build_slab_hierarchy(ml, n_sh, dtype=dtype), mesh
+        )
     h = ml._device_cache[key]
 
     Wx, Wy = h.fine_dims
@@ -660,38 +659,8 @@ def solve_lattice_sharded(
     bg = jax.device_put(bg, sh)
 
     cyc = _cycle_tag(cycle)
-
-    @jax.jit
-    def pcg(h, bg, abstol):
-        M = lambda r: cycle_lattice_sharded(h, jnp.zeros_like(r), r, mesh, cyc)
-        Amv = lambda v: matvec_lattice_sharded(h, v, mesh)
-        x0 = jnp.zeros_like(bg)
-        r0 = bg
-        z0 = M(r0)
-        p0 = z0
-        rz0 = jnp.vdot(r0, z0)
-
-        def cond(st):
-            x, r, p, rz, it, nr = st
-            return (it < maxiter) & (nr > abstol)
-
-        def body(st):
-            x, r, p, rz, it, nr = st
-            Ap = Amv(p)
-            alpha = rz / jnp.vdot(p, Ap)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = M(r)
-            rz2 = jnp.vdot(r, z)
-            p = z + (rz2 / rz) * p
-            return (x, r, p, rz2, it + 1, jnp.linalg.norm(r))
-
-        st = (x0, r0, p0, rz0, 0, jnp.linalg.norm(r0))
-        x, r, p, rz, it, nr = jax.lax.while_loop(cond, body, st)
-        return x, it, nr
-
     normb = float(np.linalg.norm(np.asarray(b)))
-    x, it, nr = pcg(h, bg, tol * normb)
+    x, it, nr = _pcg_sharded(h, bg, tol * normb, maxiter, mesh=mesh, cyc=cyc)
     if jax.process_count() > 1 and not x.is_fully_addressable:
         from jax.experimental import multihost_utils
 
@@ -702,3 +671,35 @@ def solve_lattice_sharded(
     if log:
         return xout, int(it), float(nr) / max(normb, 1e-300)
     return xout
+
+
+@partial(jax.jit, static_argnames=("mesh", "cyc"))
+def _pcg_sharded(h: SlabHierarchy, bg, abstol, maxiter, mesh: Mesh, cyc: str):
+    """Jitted AMG-PCG on the slab grid (dot products psum over the mesh)."""
+    M = lambda r: _cycle_jit(h, jnp.zeros_like(r), r, mesh=mesh, cyc=cyc)
+    Amv = lambda v: matvec_lattice_sharded(h, v, mesh)
+    hi = jax.lax.Precision.HIGHEST
+    x0 = jnp.zeros_like(bg)
+    r0 = bg
+    z0 = M(r0)
+    p0 = z0
+    rz0 = jnp.vdot(r0, z0, precision=hi)
+
+    def cond(st):
+        x, r, p, rz, it, nr = st
+        return (it < maxiter) & (nr > abstol)
+
+    def body(st):
+        x, r, p, rz, it, nr = st
+        Ap = Amv(p)
+        alpha = rz / jnp.vdot(p, Ap, precision=hi)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz2 = jnp.vdot(r, z, precision=hi)
+        p = z + (rz2 / rz) * p
+        return (x, r, p, rz2, it + 1, jnp.linalg.norm(r))
+
+    st = (x0, r0, p0, rz0, 0, jnp.linalg.norm(r0))
+    x, r, p, rz, it, nr = jax.lax.while_loop(cond, body, st)
+    return x, it, nr

@@ -1,15 +1,14 @@
 """Observability utilities: phase timing and roofline accounting.
 
-TPU equivalents of the reference's auxiliary subsystems (survey §5):
+Equivalents of the reference's auxiliary subsystems (survey §5):
 
 * the reference's ``@timeit_debug`` phase timers (compiled out by default)
   → :class:`PhaseTimer`, an opt-in host-side wall-clock accumulator used by
   the setup drivers, plus ``jax.named_scope`` annotations inside the jitted
-  cycle (models/device.py) for xprof traces;
+  cycle (models/device.py) for profiler traces;
 * residual logging / verbose printing live on the solve drivers
   (``log=``/``verbose=`` kwargs, multilevel.jl:158-198 parity);
-* :func:`cycle_work` — nnz-based work accounting per cycle, the quantity
-  behind the Gnnz/s benchmark metric (BASELINE.json).
+* :func:`cycle_work` — nnz-based work accounting per cycle.
 """
 
 from __future__ import annotations
@@ -56,7 +55,7 @@ class PhaseTimer:
 
 def cycle_work(ml, cycle: str = "V") -> int:
     """nnz touched by SpMV-class ops in one cycle (smoothers + residual +
-    transfer operators), the work measure of the Gnnz/s benchmark.
+    transfer operators).
 
     A symmetric-GS smoother sweep touches nnz(A) per direction; V visits
     each level once, W twice per recursion level (counted approximately as
@@ -75,7 +74,7 @@ def cycle_work(ml, cycle: str = "V") -> int:
 
 @contextlib.contextmanager
 def profile_trace(logdir: str):
-    """Wrap a block in a jax.profiler trace (TensorBoard/xprof readable)."""
+    """Wrap a block in a jax.profiler trace (TensorBoard/Perfetto readable)."""
     import jax
 
     jax.profiler.start_trace(logdir)

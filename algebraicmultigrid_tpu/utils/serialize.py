@@ -7,7 +7,7 @@ as their compact coefficient tables (a few KB regardless of problem size —
 the O(boundary) representation is also the O(boundary) checkpoint).
 
 ``save_hierarchy(ml, path)`` / ``load_hierarchy(path)`` round-trip the host
-``MultiLevel``; the device/pallas caches are rebuilt lazily on first use, so
+``MultiLevel``; the device caches are rebuilt lazily on first use, so
 a loaded hierarchy solves identically on any backend.
 """
 

@@ -19,12 +19,15 @@ from algebraicmultigrid_tpu.parallel.lattice_cycle import (
     build_slab_hierarchy,
     cycle_lattice_sharded,
     matvec_lattice_sharded,
+    place_slab_hierarchy,
     solve_lattice_sharded,
 )
 
 pytestmark = pytest.mark.multichip
 
-N = 216
+# 144 keeps the 8-slab hierarchy's shape at 216: a sharded fine level, then
+# the agglomeration seam to replicated levels
+N = 144
 
 
 @pytest.fixture(scope="module")
@@ -37,15 +40,15 @@ def ml():
 
 
 @pytest.fixture(scope="module")
-def h8(ml):
-    return build_slab_hierarchy(ml, 8)
-
-
-@pytest.fixture(scope="module")
 def mesh():
     devs = jax.devices()
     assert len(devs) >= 8, "conftest must provide the 8-device virtual mesh"
     return jax.sharding.Mesh(np.array(devs[:8]), (AXIS,))
+
+
+@pytest.fixture(scope="module")
+def h8(ml, mesh):
+    return place_slab_hierarchy(build_slab_hierarchy(ml, 8), mesh)
 
 
 def _grid(v, h):
@@ -58,12 +61,22 @@ def _grid(v, h):
 
 def test_builder_shards_fine_agglomerates_coarse(ml, h8):
     h = h8
-    assert h.levels[0].sharded, "216-row fine level must shard over 8 slabs"
+    assert h.levels[0].sharded, "144-row fine level must shard over 8 slabs"
     assert not h.levels[-1].sharded, "coarse tail must be agglomerated"
     # slab alignment invariant: a sharded child's padded rows = parent's / k
     for a, b in zip(h.levels[:-1], h.levels[1:]):
         if b.sharded:
             assert b.pdims[0] == a.pdims[0] // a.k
+
+
+def test_placed_hierarchy_spans_mesh(h8):
+    # sharded levels hold one slab per device, replicated levels a copy on
+    # every device of the mesh
+    for lv in h8.levels:
+        for arr in (lv.A, lv.dinv, lv.T, lv.S):
+            assert len(arr.sharding.device_set) == 8
+            n_shards = len({s.index for s in arr.addressable_shards})
+            assert n_shards == (8 if lv.sharded else 1)
 
 
 def test_sharded_matvec_matches_host(ml, mesh, h8):

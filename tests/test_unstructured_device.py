@@ -1,9 +1,9 @@
 """Device-engine solves of UNSTRUCTURED matrices (the reference's bread and
 butter — multilevel.jl:214-239 works on any SparseMatrixCSC).
 
-The device hierarchy must lower scrambled/mesh-free matrices to the BSG
-gather tier (via a folded RCM basis) instead of the slow padded-ELL
-fallback, and the solves must agree with the host engine.
+The device hierarchy lowers scrambled/mesh-free matrices to the ELL gather
+format in a folded RCM basis (neighbours get nearby indices, so gathers of
+x hit nearby addresses), and the solves must agree with the host engine.
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 import algebraicmultigrid_tpu as amg
 from algebraicmultigrid_tpu.models.device import build_device_hierarchy, cg_device, solve_device
-from algebraicmultigrid_tpu.ops.bsg import BSG
+from algebraicmultigrid_tpu.ops.sparse import ELL
 
 
 def _scrambled_poisson(nx, ny, seed=0):
@@ -31,20 +31,21 @@ def scrambled():
     return A, ml
 
 
-def test_bsg_level_selected(scrambled):
-    # small scrambled matrices fit a natural-order window — BSG, no perm
+def test_ell_level_selected(scrambled):
+    # scrambled matrices fit no structured format — every level's A is ELL
     A, ml = scrambled
     h = build_device_hierarchy(ml, dtype=jnp.float32)
-    assert isinstance(h.levels[0].A, BSG), type(h.levels[0].A)
+    assert all(isinstance(lv.A, ELL) for lv in h.levels), [type(lv.A) for lv in h.levels]
 
 
 def test_rcm_basis_adopted_and_inverted():
-    # big enough that the natural-order span exceeds the ws=64 cap: the
-    # lowering must adopt the RCM basis and fold it into P/R/entry/exit
+    # a scrambled mesh's RCM order shrinks its bandwidth by far more than
+    # half: the lowering must adopt the RCM basis and fold it into
+    # P/R/entry/exit
     A, _ = _scrambled_poisson(96, 96, seed=2)
     ml = amg.smoothed_aggregation(A)
     h = build_device_hierarchy(ml, dtype=jnp.float32)
-    assert isinstance(h.levels[0].A, BSG)
+    assert isinstance(h.levels[0].A, ELL)
     assert h.perm0 is not None and h.iperm0 is not None
     n = A.shape[0]
     pp, ip = np.asarray(h.perm0)[:n], np.asarray(h.iperm0)[:n]
@@ -113,7 +114,7 @@ def test_elasticity_device_solve(lin_elastic_2d):
 @pytest.mark.multichip
 def test_unstructured_sharded_solve():
     # the row-shard tier must carry the RCM basis through entry/exit
-    # (BSG levels ride replicated; transfers/ELL shard) — result must match
+    # (ELL levels and transfers shard) — result must match
     # the single-device engine's convergence on the ORIGINAL ordering
     from algebraicmultigrid_tpu.parallel.dist import make_row_mesh, solve_sharded
 
